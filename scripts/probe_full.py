@@ -3,10 +3,10 @@ HOST-SIDE ONLY (JAX_PLATFORMS=cpu) and report where every byte goes.
 
 Two outputs:
   * artifacts/cache/block_leve{L}_model.pkl — the host model (systems +
-    regions) after the expensive mesh/assembly stage, so device-run retries
-    skip the ~44-minute setup (bench.py loads it via DDPCA_MODEL_CACHE=1).
+    regions) after the expensive mesh/assembly stage, so repeat probes
+    skip the ~44-minute setup.
   * artifacts/probe_full_breakdown.json — bytes per pytree path, sorted,
-    so HBM cuts target the real hogs instead of the guessed ones.
+    so device-memory cuts target the real hogs instead of the guessed ones.
 
 Run:  JAX_PLATFORMS=cpu python scripts/probe_full.py [glob_leve]
 """
@@ -37,7 +37,7 @@ def main() -> None:
         with open(cache, "rb") as f:
             systems, regions = pickle.load(f)
     else:
-        from ddpca_admm_tpu.models.block import BlockConfig, build_block_model
+        from ddpca_admm.models.block import BlockConfig, build_block_model
 
         cfg = BlockConfig(divi=(6, 6, 6), glob_leve=glob_leve,
                           doma_numb=(2, 2, 2))
@@ -48,7 +48,7 @@ def main() -> None:
         print(f"[probe] model built+cached in {time.perf_counter()-t0:.0f}s",
               flush=True)
 
-    from ddpca_admm_tpu.admm.problem import build_problem
+    from ddpca_admm.admm.problem import build_problem
 
     t1 = time.perf_counter()
     prob, meta = build_problem(

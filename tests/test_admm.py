@@ -4,8 +4,8 @@ strategy, SURVEY.md section 4, on minimal geometry)."""
 
 import numpy as np
 
-from ddpca_admm_tpu.admm.loop import contact_analysis
-from ddpca_admm_tpu.models.simple import (
+from ddpca_admm.admm.loop import contact_analysis
+from ddpca_admm.models.simple import (
     split_box_problem,
     stacked_boxes_problem,
 )
@@ -43,10 +43,10 @@ def test_split_box_matches_monolithic():
     """Perfect interface (vector mode): DD result == single-body result."""
     import scipy.sparse.linalg as spla
 
-    from ddpca_admm_tpu.fem.assembly import assemble_stiffness
-    from ddpca_admm_tpu.fem.constraints import constrain
-    from ddpca_admm_tpu.mesh.hexmesh import HexMesh
-    from ddpca_admm_tpu.models.simple import (
+    from ddpca_admm.fem.assembly import assemble_stiffness
+    from ddpca_admm.fem.constraints import constrain
+    from ddpca_admm.mesh.hexmesh import HexMesh
+    from ddpca_admm.models.simple import (
         Body,
         apply_pressure,
         fix_plane,
@@ -87,11 +87,11 @@ def test_double_m_coarse_mg_matches_direct():
     """DOUBLE_M_1 (DD-multigrid coarse solve, MCONTACT.h:2303-2341) must give
     the same converged solution and comparable iteration counts as the dense
     direct coarse solve, for both coarse-correction variants."""
-    from ddpca_admm_tpu.admm.problem import build_problem
-    from ddpca_admm_tpu.models.simple import assemble_bodies
+    from ddpca_admm.admm.problem import build_problem
+    from ddpca_admm.models.simple import assemble_bodies
 
     _, _, bodies = stacked_boxes_problem(div_bot=3, div_top=2, levels=1)
-    from ddpca_admm_tpu.models.simple import (
+    from ddpca_admm.models.simple import (
         char_length,
         make_region,
         penalty,
@@ -133,8 +133,8 @@ def test_double_m_coarse_mg_matches_direct():
 def test_block1_cross_corner_patch():
     """BLOCK_1 (examples/BLOCK_1.h): no guard slabs — subdomain corners lie
     on the contact interfaces.  The patch test must still pass."""
-    from ddpca_admm_tpu.admm.problem import build_problem
-    from ddpca_admm_tpu.models.block import BlockConfig, build_block_model
+    from ddpca_admm.admm.problem import build_problem
+    from ddpca_admm.models.block import BlockConfig, build_block_model
 
     cfg = BlockConfig(
         divi=(2, 2, 2), glob_leve=1, doma_numb=(2, 2, 2), guard_slabs=False
@@ -159,9 +159,9 @@ def test_composed_coarse_correction_matches_materialized(monkeypatch):
     """ComposedTranD/ComposedAccu (the 8.8M-DOF memory path: F^T A and
     accuProl computed through the hierarchy) must converge to the same
     solution as the materialized operators."""
-    from ddpca_admm_tpu.admm.multiscale import ComposedAccu, ComposedTranD
-    from ddpca_admm_tpu.admm.problem import build_problem
-    from ddpca_admm_tpu.models.block import BlockConfig, build_block_model
+    from ddpca_admm.admm.multiscale import ComposedAccu, ComposedTranD
+    from ddpca_admm.admm.problem import build_problem
+    from ddpca_admm.models.block import BlockConfig, build_block_model
 
     cfg = BlockConfig(divi=(2, 2, 2), glob_leve=1, doma_numb=(1, 1, 1))
     model = build_block_model(cfg)

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from ddpca_admm_tpu.solvers.krylov import gmres, jacobi_preconditioner
+from ddpca_admm.solvers.krylov import gmres, jacobi_preconditioner
 
 
 def test_gmres_nonsymmetric():
@@ -22,9 +22,9 @@ def test_gmres_nonsymmetric():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from ddpca_admm_tpu.admm.loop import admm_step, init_state
-    from ddpca_admm_tpu.models.simple import stacked_boxes_problem
-    from ddpca_admm_tpu.utils.checkpoint import load_state, save_state
+    from ddpca_admm.admm.loop import admm_step, init_state
+    from ddpca_admm.models.simple import stacked_boxes_problem
+    from ddpca_admm.utils.checkpoint import load_state, save_state
 
     prob, meta, _ = stacked_boxes_problem(div_bot=2, div_top=2, levels=0)
     modes = tuple(meta.group_modes)
@@ -42,8 +42,8 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_stress_recovery_uniform_field():
-    from ddpca_admm_tpu.mesh.hexmesh import HexMesh
-    from ddpca_admm_tpu.utils.io import stress_recovery
+    from ddpca_admm.mesh.hexmesh import HexMesh
+    from ddpca_admm.utils.io import stress_recovery
 
     m = HexMesh()
     m.add_box_grid(np.zeros(3), np.ones(3) / 2, (2, 2, 2))
@@ -66,8 +66,8 @@ def test_postprocess_renders_pngs(tmp_path):
     writer path, then render all three figures."""
     import os
 
-    from ddpca_admm_tpu.cli import main
-    from ddpca_admm_tpu.utils.postprocess import postprocess
+    from ddpca_admm.cli import main
+    from ddpca_admm.utils.postprocess import postprocess
 
     out = str(tmp_path / "Boxes")
     main(["boxes", "--levels", "0", "--outdir", out, "--max-iter", "200",

@@ -4,18 +4,18 @@ SOLVE_NODD oracle, examples/BEAM.h:55-57,403-416)."""
 import numpy as np
 import scipy.sparse.linalg as spla
 
-from ddpca_admm_tpu.admm.loop import contact_analysis
-from ddpca_admm_tpu.fem.assembly import assemble_stiffness
-from ddpca_admm_tpu.fem.constraints import constrain
-from ddpca_admm_tpu.mesh.hexmesh import HexMesh
-from ddpca_admm_tpu.models.beam import (
+from ddpca_admm.admm.loop import contact_analysis
+from ddpca_admm.fem.assembly import assemble_stiffness
+from ddpca_admm.fem.constraints import constrain
+from ddpca_admm.mesh.hexmesh import HexMesh
+from ddpca_admm.models.beam import (
     BeamConfig,
     _beam_load,
     build_beam_model,
     straight_grid,
     twist_map,
 )
-from ddpca_admm_tpu.models.simple import Body
+from ddpca_admm.models.simple import Body
 
 
 def test_beam_dd_matches_nodd():

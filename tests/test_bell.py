@@ -1,10 +1,10 @@
-"""BlockEll (TPU block-sparse format) correctness vs scipy and Ell."""
+"""BlockEll (block-sparse format) correctness vs scipy and Ell."""
 
 import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from ddpca_admm_tpu.sparse.bell import (
+from ddpca_admm.sparse.bell import (
     CB,
     RB,
     BlockEll,

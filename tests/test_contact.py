@@ -1,19 +1,19 @@
 import numpy as np
 
-from ddpca_admm_tpu.contact.geometry import (
+from ddpca_admm.contact.geometry import (
     clip_pairs,
     project_normal_to_quads,
     project_points_to_quads,
     triangle_gauss,
 )
-from ddpca_admm_tpu.contact.search import (
+from ddpca_admm.contact.search import (
     IntegralPoints,
     bucket_pairs,
     mortar_integrate,
     region_search,
     surface_faces,
 )
-from ddpca_admm_tpu.mesh.hexmesh import HexMesh
+from ddpca_admm.mesh.hexmesh import HexMesh
 
 
 def test_project_point_to_flat_quad():
@@ -28,7 +28,7 @@ def test_project_point_to_warped_quad():
     rng = np.random.default_rng(0)
     corners = np.array([[0.0, 0, 0], [1, 0, 0.1], [1, 1, -0.05], [0, 1, 0.2]])[None]
     # pick a point ON the surface: xi=(0.3,-0.4)
-    from ddpca_admm_tpu.contact.geometry import bilinear_coeffs, quad4_eval
+    from ddpca_admm.contact.geometry import bilinear_coeffs, quad4_eval
 
     coef = bilinear_coeffs(corners)
     target_xi = np.array([[0.3, -0.4]])

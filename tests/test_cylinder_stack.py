@@ -1,34 +1,18 @@
 """Full CYLINDER stack assembly (CYLINDER.h:440-551) + CYLINDER_1
 cross-corner variant, at reduced refinement."""
 
-import numpy as np
 import pytest
-
-
-def _pressures(meta, state):
-    """(max pressure, integrated normal force) per frictionless region."""
-    out = {}
-    for g_i, mode in enumerate(meta.group_modes):
-        gs = state.groups[g_i]
-        for slot, ri in enumerate(meta.group_region_idx[g_i]):
-            reg = meta.regions[ri].region
-            if reg.fric < 0.0:
-                continue
-            ip = reg.ip
-            gamma = np.asarray(gs.gamma[slot])
-            gn = gamma[: ip.n] if mode == "scalar" else gamma[: 3 * ip.n : 3]
-            out[ri] = (float(gn.max(initial=0.0)), float(gn @ ip.weight))
-    return out
 
 
 @pytest.mark.parametrize("cross_corner", [False, True])
 def test_cylinder_stack_hertz(cross_corner):
     import jax
 
-    from ddpca_admm_tpu.admm.loop import contact_analysis
-    from ddpca_admm_tpu.models.cylinder import (
+    from ddpca_admm.admm.loop import contact_analysis
+    from ddpca_admm.models.cylinder import (
         CylinderConfig,
         build_cylinder_model,
+        region_pressures,
     )
 
     cfg = CylinderConfig(
@@ -42,7 +26,7 @@ def test_cylinder_stack_hertz(cross_corner):
     jax.block_until_ready(st.u)
     assert bool(st.converged)
     a, p_max = cfg.hertz
-    pres = _pressures(meta, st)
+    pres = region_pressures(meta, st)
     # regions 0..1 (cross-corner) / 0..3 (mirror halves) are the two
     # cylinder contacts; the remainder are the mid-circle interfaces
     n_cont = 2 if cross_corner else 4

@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from ddpca_admm_tpu.models.dehw_surf import (
+from ddpca_admm.models.dehw_surf import (
     DehwParams,
     fsme,
     singular_c2h,
@@ -72,8 +72,8 @@ def test_wheel_flank_grid_in_tooth_band():
 
 import pytest
 
-from ddpca_admm_tpu.models.dehw_surf import DehwGrid, build_surfaces
-from ddpca_admm_tpu.models.dehw_assembly import (
+from ddpca_admm.models.dehw_surf import DehwGrid, build_surfaces
+from ddpca_admm.models.dehw_assembly import (
     DehwDDConfig,
     build_dehw_assembly,
 )

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from ddpca_admm_tpu.sparse.dia import (
+from ddpca_admm.sparse.dia import (
     Dia,
     dia_from_csr_list,
     plane_dia_from_csr_list,
@@ -104,11 +104,11 @@ def test_structured_plane_dia_solve_matches_bell(monkeypatch):
     """Force the structured DIA path (BlockEll byte budget = 0) on a small
     BLOCK problem and check the ADMM solution matches the default path —
     the 8.8M-DOF format exercised end-to-end at test scale."""
-    import ddpca_admm_tpu.sparse.bell as bell
-    from ddpca_admm_tpu.admm.loop import contact_analysis
-    from ddpca_admm_tpu.admm.problem import build_problem
-    from ddpca_admm_tpu.models.block import BlockConfig, build_block_model
-    from ddpca_admm_tpu.solvers.mg import BatchBlocks
+    import ddpca_admm.sparse.bell as bell
+    from ddpca_admm.admm.loop import contact_analysis
+    from ddpca_admm.admm.problem import build_problem
+    from ddpca_admm.models.block import BlockConfig, build_block_model
+    from ddpca_admm.solvers.mg import BatchBlocks
 
     cfg = BlockConfig(divi=(2, 2, 2), glob_leve=1, doma_numb=(1, 1, 1))
     model = build_block_model(cfg)
@@ -121,7 +121,7 @@ def test_structured_plane_dia_solve_matches_bell(monkeypatch):
     monkeypatch.setattr(bell, "BELL_MAX_BYTES", 0)
     # tiny fixture: defeat the latency-bound plain-Dia demotion so the
     # PlaneDia solve path is actually exercised (solvers/mg.py policy)
-    import ddpca_admm_tpu.solvers.mg as mgmod
+    import ddpca_admm.solvers.mg as mgmod
 
     monkeypatch.setattr(mgmod, "DIA_LATENCY_BYTES", 0)
     prob_dia, meta2 = build_problem(
@@ -139,48 +139,33 @@ def test_structured_plane_dia_solve_matches_bell(monkeypatch):
     assert np.abs(ud - ur).max() <= 1e-6 * scale
 
 
-def test_plane_dia_pallas_interpret_matches_jnp():
-    """The Pallas kernel (interpret mode on CPU) must match the jnp path."""
-    from ddpca_admm_tpu.sparse.pallas_dia import (
-        pallas_eligible,
-        plane_dia_mv_pallas,
-    )
-
+@pytest.mark.parametrize("pad", [0, 64])
+@pytest.mark.parametrize("tail_identity", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_plane_dia_mv_matches_scipy(dtype, tail_identity, pad):
+    """PlaneDia.mv against scipy on the stored (rounded) values, for both
+    tail conventions (identity: hierarchy padding; zero: transfer
+    stencils) with and without padded rows past the active grid."""
     rng = np.random.default_rng(7)
     nz, ny, nx = 10, 3, 2
     mats = [_banded_grid_matrix(nz, ny, nx, rng) for _ in range(3)]
     n = mats[0].shape[0]
-    n_pad = n + 64
-    padded = [sp.block_diag([m, sp.identity(64)], format="csr") for m in mats]
-    pd = plane_dia_from_csr_list(padded, (nz, ny, nx), n_pad, np.float32,
+    n_pad = n + pad
+    if tail_identity and pad:
+        mats = [sp.block_diag([m, sp.identity(pad)], format="csr")
+                for m in mats]
+    pd = plane_dia_from_csr_list(mats, (nz, ny, nx), n_pad, dtype,
+                                 pad_identity=tail_identity,
                                  max_classes=3 * nz + 2)
     assert pd is not None
-    x = rng.standard_normal((3, n_pad)).astype(np.float32)
-    assert pallas_eligible(pd, x)
-    y_ref = np.asarray(pd.mv(x))
-    y_pal = np.asarray(plane_dia_mv_pallas(pd, x, interpret=True))
-    np.testing.assert_allclose(y_pal, y_ref, rtol=2e-6, atol=1e-6)
-
-
-def test_plane_dia_pallas_chunked_offsets_matches_jnp(monkeypatch):
-    """When the value table exceeds VALS_VMEM_MAX the kernel chunks the
-    offset axis and sums partial products (the 8.8M-DOF finest-level path:
-    a ~134 MB table cannot stay VMEM-resident)."""
-    import ddpca_admm_tpu.sparse.pallas_dia as pdk
-
-    rng = np.random.default_rng(11)
-    nz, ny, nx = 10, 3, 2
-    mats = [_banded_grid_matrix(nz, ny, nx, rng) for _ in range(3)]
-    n = mats[0].shape[0]
-    pd = plane_dia_from_csr_list(mats, (nz, ny, nx), n, np.float32,
-                                 max_classes=3 * nz + 2)
-    assert pd is not None
-    x = rng.standard_normal((3, n)).astype(np.float32)
-    # shrink the budget so one chunk holds only a few offsets
-    per_offset = pd.vals.shape[0] * pd.plane * pd.vals.dtype.itemsize
-    monkeypatch.setattr(pdk, "VALS_VMEM_MAX", 3 * per_offset)
-    assert pdk.pallas_eligible(pd, x)
-    assert pdk._chunk_offsets(pd) == 3
-    y_ref = np.asarray(pd.mv(x))
-    y_pal = np.asarray(pdk.plane_dia_mv_pallas(pd, x, interpret=True))
-    np.testing.assert_allclose(y_pal, y_ref, rtol=2e-6, atol=1e-6)
+    assert pd.n_rows == n_pad and pd.n_active == n
+    x = rng.standard_normal((3, n_pad)).astype(dtype)
+    y = np.asarray(pd.mv(x))
+    assert y.shape == (3, n_pad) and y.dtype == dtype
+    ref = np.zeros((3, n_pad))
+    for b, m in enumerate(mats):
+        m32 = m.astype(dtype).astype(np.float64)   # the stored values
+        ref[b, :n] = (m32 @ x[b, : m.shape[1]].astype(np.float64))[:n]
+        ref[b, n:] = x[b, n:] if tail_identity else 0.0
+    tol = 1e-5 if dtype == np.float32 else 1e-12
+    assert np.abs(y - ref).max() <= tol * np.abs(ref).max()

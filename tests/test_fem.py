@@ -1,14 +1,14 @@
 import numpy as np
 
-from ddpca_admm_tpu.fem.assembly import assemble_stiffness
-from ddpca_admm_tpu.fem.constraints import constrain
-from ddpca_admm_tpu.fem.elasticity import (
+from ddpca_admm.fem.assembly import assemble_stiffness
+from ddpca_admm.fem.constraints import constrain
+from ddpca_admm.fem.elasticity import (
     elastic_matrix,
     element_stiffness,
     element_stiffness_jax,
     element_volumes,
 )
-from ddpca_admm_tpu.mesh.hexmesh import HexMesh
+from ddpca_admm.mesh.hexmesh import HexMesh
 
 
 def unit_cube_coords():
@@ -77,8 +77,8 @@ def uniaxial_problem(div=2, levels=1):
     # consistent nodal load on top face z=1: pressure p over area
     top = [i for i, c in enumerate(m.coords) if c[2] > 1 - tol]
     # count face-weights via boundary faces of leaves
-    from ddpca_admm_tpu.fem.assembly import distribute_face_load
-    from ddpca_admm_tpu.utils.quadrature import HEX_FACES
+    from ddpca_admm.fem.assembly import distribute_face_load
+    from ddpca_admm.utils.quadrature import HEX_FACES
 
     leaves = m.leaf_elems()
     faces = []

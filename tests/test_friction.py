@@ -8,8 +8,8 @@ within the friction cone (tau < mu*|p|)."""
 
 import numpy as np
 
-from ddpca_admm_tpu.admm.loop import contact_analysis
-from ddpca_admm_tpu.models.simple import stacked_boxes_problem
+from ddpca_admm.admm.loop import contact_analysis
+from ddpca_admm.models.simple import stacked_boxes_problem
 
 
 def test_stick_with_tilting_pressure():

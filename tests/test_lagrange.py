@@ -3,12 +3,12 @@
 
 import numpy as np
 
-from ddpca_admm_tpu.admm.lagrange import solve_lagrange
-from ddpca_admm_tpu.models.simple import stacked_boxes_problem
+from ddpca_admm.admm.lagrange import solve_lagrange
+from ddpca_admm.models.simple import stacked_boxes_problem
 
 
 def test_lagrange_stacked_boxes_patch():
-    from ddpca_admm_tpu.models.simple import assemble_bodies
+    from ddpca_admm.models.simple import assemble_bodies
 
     prob, meta, bodies = stacked_boxes_problem(div_bot=3, div_top=2, levels=0)
     # LAGRANGE uses the penalty-free stiffness (MCONTACT.h:2850-2860)
@@ -42,7 +42,7 @@ def test_lagrange_friction_slide_stick_transition():
     transitions (MCONTACT.h:3639-3689): a shear load tilts the contact
     pressure, so low-pressure nodes leave the stick state (initial status 2)
     and finish sliding (status 1) while high-pressure nodes keep sticking."""
-    from ddpca_admm_tpu.models.simple import assemble_bodies
+    from ddpca_admm.models.simple import assemble_bodies
 
     p, mu, tau = -1.0e7, 0.15, 1.2e6
     prob, meta, bodies = stacked_boxes_problem(
@@ -71,7 +71,7 @@ def test_lagrange_friction_slide_stick_transition():
 def test_lagrange_restricted_gmg_preconditioner():
     """precType=1 (restricted-GMG BiCGSTAB, MCONTACT.h:3419-3562) must give
     the same patch-test solution as the Jacobi path on a refined mesh."""
-    from ddpca_admm_tpu.models.simple import assemble_bodies
+    from ddpca_admm.models.simple import assemble_bodies
 
     prob, meta, bodies = stacked_boxes_problem(div_bot=3, div_top=2, levels=1)
     systems = assemble_bodies(bodies, meta.regions, include_penalty=False)
@@ -98,10 +98,10 @@ def test_lagrange_vs_admm_on_block_example():
     dual-mortar LAGRANGE solution must match the ADMM solution on the BLOCK
     geometry (3 stacked blocks + guard slabs, frictionless contact between
     blocks, perfect interfaces inside)."""
-    from ddpca_admm_tpu.admm.loop import contact_analysis
-    from ddpca_admm_tpu.admm.problem import build_problem
-    from ddpca_admm_tpu.models.block import BlockConfig, build_block_model
-    from ddpca_admm_tpu.models.simple import assemble_bodies
+    from ddpca_admm.admm.loop import contact_analysis
+    from ddpca_admm.admm.problem import build_problem
+    from ddpca_admm.models.block import BlockConfig, build_block_model
+    from ddpca_admm.models.simple import assemble_bodies
 
     cfg = BlockConfig(divi=(2, 2, 2), glob_leve=1, doma_numb=(1, 1, 1))
     model = build_block_model(cfg)

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from ddpca_admm_tpu.mesh.hexmesh import HexMesh
-from ddpca_admm_tpu.mesh.templates import PATTERN_ARRAYS, PATTERN_AXES, TEMPLATES
+from ddpca_admm.mesh.hexmesh import HexMesh
+from ddpca_admm.mesh.templates import PATTERN_ARRAYS, PATTERN_AXES, TEMPLATES
 
 
 def make_unit_mesh(div=2):

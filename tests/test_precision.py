@@ -1,18 +1,17 @@
-"""TPU precision policy validation (utils/precision.py).
+"""Precision policy validation (utils/precision.py).
 
-The TPU solve path runs end-to-end in f32 (f64 is software-emulated on TPU:
-measured ~12 s per ADMM iteration on v5e — 4 orders of magnitude off — and
-long f64 while_loops fault the device).  These tests run the f32 pipeline on
-CPU against the f64 oracle to bound the accuracy cost of the policy.
+The default solve is f64 with an f32 V-cycle on every backend.  The f32
+solve stays selectable; these tests run it on the CPU against the f64
+oracle to bound its accuracy cost.
 """
 
 import jax.numpy as jnp
 import numpy as np
 
-from ddpca_admm_tpu.admm.loop import contact_analysis
-from ddpca_admm_tpu.admm.problem import build_problem
-from ddpca_admm_tpu.models.block import BlockConfig, build_block_model
-from ddpca_admm_tpu.utils.precision import cast_pytree, floor_rtol, solve_dtype
+from ddpca_admm.admm.loop import contact_analysis
+from ddpca_admm.admm.problem import build_problem
+from ddpca_admm.models.block import BlockConfig, build_block_model
+from ddpca_admm.utils.precision import cast_pytree, floor_rtol, solve_dtype
 
 
 def _solve(dtype):
@@ -78,3 +77,20 @@ def test_solve_dtype_explicit_override():
     assert solve_dtype(jnp.float32) == jnp.dtype(jnp.float32)
     # on the CPU test backend the default is f64
     assert solve_dtype() == jnp.dtype(jnp.float64)
+
+
+def test_gpu_backend_defaults(monkeypatch):
+    """The GPU gets the CPU's policy: an f64 solve and plain ELL."""
+    import jax
+
+    from ddpca_admm.sparse.bell import use_block_format
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.delenv("DDPCA_SOLVE_DTYPE", raising=False)
+    monkeypatch.delenv("DDPCA_SPARSE_FORMAT", raising=False)
+    assert solve_dtype() == jnp.dtype(jnp.float64)
+    assert not use_block_format()
+    monkeypatch.setenv("DDPCA_SPARSE_FORMAT", "bell")
+    assert use_block_format()
+    monkeypatch.setenv("DDPCA_SOLVE_DTYPE", "f32")
+    assert solve_dtype() == jnp.dtype(jnp.float32)

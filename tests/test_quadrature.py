@@ -1,6 +1,6 @@
 import numpy as np
 
-from ddpca_admm_tpu.utils.quadrature import (
+from ddpca_admm.utils.quadrature import (
     HEX_QUAD,
     QUAD_QUAD,
     TRI_QUAD,
@@ -29,7 +29,7 @@ def test_hex_shape_partition_of_unity():
 
 
 def test_shape_interpolates_corners():
-    from ddpca_admm_tpu.utils.quadrature import HEX_CORNERS
+    from ddpca_admm.utils.quadrature import HEX_CORNERS
 
     N = hex8_shape(HEX_CORNERS)
     assert np.allclose(N, np.eye(8))

@@ -1,5 +1,5 @@
 """Multi-chip correctness: an 8-device 'domain'-sharded run must reproduce
-the single-device solution (the TPU analogue of the reference's DD-vs-noDD
+the single-device solution (the multi-device analogue of the reference's DD-vs-noDD
 oracle, and the actual correctness contract of MCONTACT.h:2511-2704's
 shared-memory consensus when split across chips)."""
 
@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ddpca_admm_tpu.admm.loop import admm_step, contact_analysis, init_state
-from ddpca_admm_tpu.models.simple import chain_problem
-from ddpca_admm_tpu.parallel.sharding import (
+from ddpca_admm.admm.loop import admm_step, contact_analysis, init_state
+from ddpca_admm.models.simple import chain_problem
+from ddpca_admm.parallel.sharding import (
     assert_state_sharding,
     domain_mesh,
     shard_problem,
@@ -45,7 +45,7 @@ def test_host_domain_mesh_matches_single_device(chain8):
     """2-axis (host, domain) = (2, 4) mesh: the DCN/ICI hierarchy placement
     (parallel/sharding.py::host_domain_mesh) must reproduce the single-device
     solution and iteration count exactly."""
-    from ddpca_admm_tpu.parallel.sharding import host_domain_mesh
+    from ddpca_admm.parallel.sharding import host_domain_mesh
 
     prob, meta, _ = chain8
     modes = tuple(meta.group_modes)

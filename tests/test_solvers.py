@@ -2,12 +2,12 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.sparse.linalg as spla
 
-from ddpca_admm_tpu.fem.assembly import assemble_stiffness
-from ddpca_admm_tpu.fem.constraints import constrain
-from ddpca_admm_tpu.mesh.hexmesh import HexMesh
-from ddpca_admm_tpu.solvers.krylov import jacobi_preconditioner, pcg
-from ddpca_admm_tpu.solvers.mg import build_hierarchy, vcycle
-from ddpca_admm_tpu.sparse.ell import ell_from_csr, to_device
+from ddpca_admm.fem.assembly import assemble_stiffness
+from ddpca_admm.fem.constraints import constrain
+from ddpca_admm.mesh.hexmesh import HexMesh
+from ddpca_admm.solvers.krylov import jacobi_preconditioner, pcg
+from ddpca_admm.solvers.mg import build_hierarchy, vcycle
+from ddpca_admm.sparse.ell import ell_from_csr, to_device
 
 
 def small_elasticity(div=2, levels=1, seed=0):
